@@ -1,6 +1,6 @@
 """Top-level CLI: the 10 ci-gwas subcommands, drop-in compatible.
 
-Equivalent of `/root/reference/ci-gwas.py` (argparse wrapper); instead of
+Equivalent of the reference's `ci-gwas.py` (argparse wrapper); instead of
 shelling out to a CUDA binary and R scripts, every stage is an in-process
 call into the cigwas_tpu packages. Argument names, bounds and defaults
 mirror the reference so existing workflows can switch directly.
@@ -170,11 +170,14 @@ def cmd_srfci(args):
 
 
 def cmd_mvivw(args):
-    from cigwas_tpu.merge import get_iv_candidates
+    from cigwas_tpu.io.results import write_table
+    from cigwas_tpu.merge import IV_COLUMNS, get_iv_candidates
     from cigwas_tpu.mr import run_mvivw
 
-    iv_df = get_iv_candidates(args.cusk_output_stem)
-    iv_df.to_csv(f"{args.cusk_output_stem}_iv_candidates.csv", index=False)
+    write_table(
+        f"{args.cusk_output_stem}_iv_candidates.csv", IV_COLUMNS,
+        get_iv_candidates(args.cusk_output_stem),
+    )
     run_mvivw(
         args.cusk_output_stem,
         args.num_samples,
@@ -190,7 +193,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="ci-gwas-tpu",
         description=(
             "Causal inference for multiple risk factors and diseases from "
-            "genomics data (TPU-native)"
+            "genomics data"
         ),
     )
     sub = parser.add_subparsers(required=True, title="subcommands")

@@ -21,7 +21,7 @@ BED_PREFIX_BYTES: int = 3
 BED_PREFIX_COL_MAJ: bytes = bytes([0x6C, 0x1B, 0x01])
 
 # All device kernels see correlation panels padded up to a multiple of this
-# (shape bucketing): every distinct panel size is a separate XLA compile,
-# 60s+ per shape on remote-attached TPUs. Padded variables are inert (corr 0
-# with everything -> isolated at level 0).
+# (shape bucketing): every distinct panel size is a separate XLA compile.
+# Padded variables are inert (corr 0 with everything -> isolated at level
+# 0). The value is not yet derived on the H100 (ROADMAP 3.2).
 PANEL_ALIGN: int = 128

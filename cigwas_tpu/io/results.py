@@ -7,6 +7,7 @@ that the Python merge/sepselect stages read back.
 
 from __future__ import annotations
 
+import csv
 from dataclasses import dataclass
 
 import numpy as np
@@ -17,6 +18,24 @@ from cigwas_tpu.io.binary import (
     write_floats_to_binary,
     write_ints_to_binary,
 )
+
+
+def write_table(path: str, columns: list, rows: list, sep: str = ",") -> None:
+    """Write dict rows as a delimited table with a header line.
+
+    The bytes are those of pandas' ``DataFrame(rows).to_csv(path, sep=sep,
+    index=False)`` (floats as their shortest round-trip repr, an empty
+    table as a bare newline), so outputs stay byte-compatible with the
+    reference's tables without needing pandas.
+    """
+    with open(path, "w", newline="") as f:
+        if not rows:
+            f.write("\n")
+            return
+        w = csv.writer(f, delimiter=sep, lineterminator="\n")
+        w.writerow(columns)
+        for r in rows:
+            w.writerow([r[c] for c in columns])
 
 
 def _write_mdim(base: str, num_var: int, num_phen: int, max_level: int) -> None:

@@ -9,7 +9,7 @@ from cigwas_tpu.merge.sepselect import (
     sepselect_merged,
     orient_v_structures_merged,
 )
-from cigwas_tpu.merge.mr_assumptions import get_iv_candidates, check_ivs
+from cigwas_tpu.merge.mr_assumptions import IV_COLUMNS, get_iv_candidates, check_ivs
 
 __all__ = [
     "BlockOutput",
@@ -19,6 +19,7 @@ __all__ = [
     "MergedSkeleton",
     "sepselect_merged",
     "orient_v_structures_merged",
+    "IV_COLUMNS",
     "get_iv_candidates",
     "check_ivs",
 ]

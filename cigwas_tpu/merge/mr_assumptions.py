@@ -3,17 +3,20 @@
 Equivalent of `cusk_postprocessing/check_mr_assumptions.py`: every SNP parent
 of a trait becomes an IV candidate for all (exposure, outcome) pairs; the
 optional `check_ivs` performs reverse-causality and exclusion-restriction CI
-tests against the merged correlation matrix.
+tests against the merged correlation matrix. Both return the IV table as a
+list of ``{"Exposure", "Outcome", "IV"}`` dict rows (1-based, for R);
+:data:`IV_COLUMNS` is its column order.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
 from scipy.io import mmread
 
 from cigwas_tpu.io.results import load_mdim
 from cigwas_tpu.utils.stats import alpha_threshold, fisher_z
+
+IV_COLUMNS = ["Exposure", "Outcome", "IV"]
 
 
 def _indep(x, y, s_ixs, corr, sample_size, alpha) -> bool:
@@ -29,7 +32,7 @@ def _snp_parents(trait_ix: int, adj: np.ndarray, num_traits: int) -> np.ndarray:
     return parents[parents > num_traits]
 
 
-def get_iv_candidates(result_basename: str) -> pd.DataFrame:
+def get_iv_candidates(result_basename: str) -> list[dict]:
     """IV candidate table: SNP parents of each exposure for every
     (exposure, outcome) pair, 1-based for R (`check_mr_assumptions.py:38-54`)."""
     adj = mmread(f"{result_basename}_sam.mtx").toarray()
@@ -47,7 +50,7 @@ def get_iv_candidates(result_basename: str) -> pd.DataFrame:
                 rows.append(
                     {"Exposure": e + 1, "Outcome": o + 1, "IV": snp + 1 - num_traits}
                 )
-    return pd.DataFrame(rows)
+    return rows
 
 
 def check_ivs(
@@ -57,7 +60,7 @@ def check_ivs(
     reject_alpha: float,
     relaxed_local_faithfulness: bool = False,
     check_reverse_causality: bool = False,
-) -> pd.DataFrame:
+) -> list[dict]:
     """CI-test based IV filtering (`check_mr_assumptions.py:57-116`)."""
     adj = mmread(f"{result_basename}_sam.mtx").toarray()
     corr = mmread(f"{result_basename}_scm.mtx").toarray()
@@ -114,4 +117,4 @@ def check_ivs(
             rows.append(
                 {"Exposure": e + 1, "Outcome": o + 1, "IV": snp + 1 - num_traits}
             )
-    return pd.DataFrame(rows)
+    return rows

@@ -18,6 +18,7 @@ The regression replaces the R `MendelianRandomization::mr_mvivw` call:
 
 Input/output formats match the R script exactly: `_scm.mtx/_sam.mtx/.mdim`
 in, TSV `source sink effect p sk_adj num_snps` out (`cig_mvivw.R:121-130`).
+Results are returned as a list of dict rows with :data:`RESULT_COLUMNS`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import numpy as np
 from scipy.io import mmread
 from scipy.stats import norm
 
-from cigwas_tpu.io.results import load_mdim
+from cigwas_tpu.io.results import load_mdim, write_table
+
+RESULT_COLUMNS = ["source", "sink", "effect", "p", "sk_adj", "num_snps"]
 
 
 def _wls(X: np.ndarray, y: np.ndarray, w: np.ndarray):
@@ -111,8 +114,6 @@ def run_mvivw(
     use_skeleton: restrict exposures to traits adjacent in the cusk skeleton
     and drop instruments of non-adjacent traits (the `-s` flag).
     """
-    import pandas as pd
-
     num_var, num_trait, *_ = load_mdim(cusk_output_stem)
     corrs = mmread(f"{cusk_output_stem}_scm.mtx").toarray()
     adj = mmread(f"{cusk_output_stem}_sam.mtx").toarray()
@@ -196,18 +197,24 @@ def run_mvivw(
                     }
                 )
 
-    df = pd.DataFrame(rows)
     if out_path is not None:
-        out = df.copy()
-        out["sk_adj"] = out["sk_adj"].map({True: "TRUE", False: "FALSE"})
-        out.to_csv(out_path, sep="\t", index=False)
-    return df
+        _write_results(out_path, rows)
+    return rows
+
+
+def _write_results(out_path: str, rows: list) -> None:
+    """TSV with R's TRUE/FALSE for `sk_adj` (`cig_mvivw.R:121-130`)."""
+    write_table(
+        out_path, RESULT_COLUMNS,
+        [dict(r, sk_adj="TRUE" if r["sk_adj"] else "FALSE") for r in rows],
+        sep="\t",
+    )
 
 
 def run_mvivw_filtered(
     cusk_output_dir: str,
     num_samples: int,
-    iv_df,
+    iv_rows,
     out_path: str | None = None,
     robust: bool = True,
 ):
@@ -216,9 +223,9 @@ def run_mvivw_filtered(
     Equivalent of `mvivw/cig_mvivw_filtered.R`: per outcome, the instrument
     set is the union of IVs listed for that outcome (1-based SNP indices)
     and the exposures those rows name; reads the cuskss_merged fileset.
+    iv_rows: dict rows with "Exposure", "Outcome" and "IV" (as
+    :func:`cigwas_tpu.merge.check_ivs` returns them).
     """
-    import pandas as pd
-
     stem = f"{cusk_output_dir}/cuskss_merged"
     num_var, num_trait, *_ = load_mdim(stem)
     corrs = mmread(f"{stem}_scm.mtx").toarray()
@@ -227,12 +234,14 @@ def run_mvivw_filtered(
     B = corrs[:num_trait, num_trait:].T
     SE = (1 - B * B) / np.sqrt(num_samples - 2)
 
-    iv_df = pd.DataFrame(iv_df)
+    iv_exp = np.array([r["Exposure"] for r in iv_rows], dtype=np.int64)
+    iv_out = np.array([r["Outcome"] for r in iv_rows], dtype=np.int64)
+    iv_snp = np.array([r["IV"] for r in iv_rows], dtype=np.int64)
     rows = []
     for outcome in range(num_trait):
-        sel = iv_df[iv_df["Outcome"] == outcome + 1]
-        ivs = np.unique(sel["IV"].to_numpy()) - 1  # to 0-based SNP rows
-        exposures = np.unique(sel["Exposure"].to_numpy()) - 1
+        sel = iv_out == outcome + 1
+        ivs = np.unique(iv_snp[sel]) - 1  # to 0-based SNP rows
+        exposures = np.unique(iv_exp[sel]) - 1
         bx = B[np.ix_(ivs, exposures)] if len(ivs) and len(exposures) else np.zeros((0, 0))
         by = B[ivs, outcome] if len(ivs) else np.zeros(0)
         byse = SE[ivs, outcome] if len(ivs) else np.zeros(0)
@@ -258,9 +267,6 @@ def run_mvivw_filtered(
                     "num_snps": int(bx.shape[0]),
                 }
             )
-    df = pd.DataFrame(rows)
     if out_path is not None:
-        out = df.copy()
-        out["sk_adj"] = out["sk_adj"].map({True: "TRUE", False: "FALSE"})
-        out.to_csv(out_path, sep="\t", index=False)
-    return df
+        _write_results(out_path, rows)
+    return rows

@@ -1,13 +1,16 @@
 """ctypes bindings for the native host-side .bed operations.
 
 The shared library (native/bedops.cpp) is compiled on first use and cached
-next to the source; every entry point has a numpy fallback so the package
-works without a toolchain.
+next to the source under a name that carries a hash of the source's content,
+so an edited source is rebuilt whatever the file times say (a checkout
+scrambles them). Every entry point has a numpy fallback so the package works
+without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
@@ -15,22 +18,32 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 _SRC = os.path.join(_NATIVE_DIR, "bedops.cpp")
-_SO = os.path.join(_NATIVE_DIR, "libbedops.so")
 
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def _so_path() -> str:
+    """Library path keyed by the source's content hash."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_NATIVE_DIR, f"libbedops-{digest}.so")
+
+
+def _build(so: str) -> bool:
+    """Compile the source into `so`; False when no toolchain can."""
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
+            ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True,
             capture_output=True,
         )
-        return True
-    except Exception:
+    except (OSError, subprocess.CalledProcessError):
         return False
+    # atomic publish: concurrent first users never load a half-written file
+    os.replace(tmp, so)
+    return True
 
 
 def get_lib():
@@ -41,13 +54,13 @@ def get_lib():
     _tried = True
     if os.environ.get("CIGWAS_TPU_NO_NATIVE"):
         return None
-    if not os.path.exists(_SO) or (
-        os.path.exists(_SRC) and os.path.getmtime(_SRC) > os.path.getmtime(_SO)
-    ):
-        if not os.path.exists(_SRC) or not _build():
-            return None
+    if not os.path.exists(_SRC):
+        return None
+    so = _so_path()
+    if not os.path.exists(so) and not _build(so):
+        return None
     try:
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
     except OSError:
         return None
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

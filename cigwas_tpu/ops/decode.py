@@ -1,10 +1,10 @@
-"""On-chip 2-bit PLINK genotype decode.
+"""On-device 2-bit PLINK genotype decode.
 
 The reference decodes .bed bytes with 1024-entry lookup tables on the GPU
-(`bed_lut_gpu.h`, used by every kernel in `corr_kernels.cu`). On TPU the
-decode is pure VPU arithmetic — shift/mask the packed byte stream and map the
-four 2-bit codes to (value, validity) with elementwise selects, producing
-one-hot channels that feed the MXU contingency matmuls directly.
+(`bed_lut_gpu.h`, used by every kernel in `corr_kernels.cu`). Here the
+decode is pure elementwise arithmetic — shift/mask the packed byte stream and
+map the four 2-bit codes to (value, validity) with selects, producing
+one-hot channels that feed the contingency matmuls directly.
 
 Code semantics (LSB-first pairs within each byte):
     00 -> value 2, valid      10 -> value 1, valid
@@ -36,15 +36,14 @@ def geno_onehot(codes: jnp.ndarray, dtype=jnp.int8) -> jnp.ndarray:
     folded into the one-hot; the per-value channels are
     [value==0, value==1, value==2] = [code==3, code==2, code==0].
 
-    int8 by default: the contingency matmuls consume {0,1} operands and the
-    v5e MXU runs int8 x int8 -> int32 at ~2.4x its bf16 rate (~470 TOP/s
-    measured vs ~200 TFLOP/s); counts are exact integers either way.
+    int8 by default: the contingency matmuls consume {0,1} operands, and
+    int8 x int8 -> int32 tensor-core GEMMs run at twice the bf16 rate on
+    the H100 (data sheet); counts are exact integers either way.
 
     CHANNEL-MAJOR layout: `.reshape(3 * m, n)` orders rows [channel, marker],
     so the (3m, 3m) contingency matmul lands the nine per-channel-pair count
     matrices as CONTIGUOUS (m, m) blocks. The channel-minor alternative
-    needs a (m, 3, m, 3) -> (m, m, 3, 3) transpose whose dim-3 minor axes
-    relayout catastrophically on TPU (~12 ms of a 19 ms step at m=1024).
+    needs a (m, 3, m, 3) -> (m, m, 3, 3) transpose of the count matrix.
     """
     g0 = (codes == 3).astype(dtype)
     g1 = (codes == 2).astype(dtype)
@@ -55,7 +54,7 @@ def geno_onehot(codes: jnp.ndarray, dtype=jnp.int8) -> jnp.ndarray:
 def contingency_counts(ra: jnp.ndarray, ca: jnp.ndarray) -> jnp.ndarray:
     """(3mr, n) x (3mc, n) one-hot panels -> exact int32 counts (3mr, 3mc).
 
-    The 3x3 genotype contingency tables of all marker pairs as ONE int8 MXU
+    The 3x3 genotype contingency tables of all marker pairs as ONE int8
     matmul (`corr_kernels.cu:408-454` computes them per-pair in registers).
     """
     return jnp.dot(ra, ca.T, preferred_element_type=jnp.int32)

@@ -15,17 +15,22 @@ across nodes thanks to colex enumeration) and all neighbour slots Y at once:
 
 which is the identical Schur-complement formulation of `cuPC-S.cu:664-699`.
 
-Two TPU-first design points:
+Two design points:
 
 * the Fisher z-transform is monotonic in |rho|, so the per-test
   ``|atanh(rho)| < Th`` of the reference becomes ``|rho| < tanh(Th)`` with
   the tanh evaluated once on the host — the inner sweep runs free of
-  transcendentals on the VPU,
+  transcendentals,
 * a whole batch of candidate-set chunks is processed per device dispatch
-  with ``lax.scan`` (the remote-TPU dispatch latency makes per-chunk host
-  round trips prohibitive); the min-|rho| reduction over chunks replaces the
-  reference's atomicCAS edge mutex with a deterministic reduction (removing
-  its sepset tie-break nondeterminism).
+  with ``lax.scan`` (no per-chunk host round trips); the min-|rho|
+  reduction over chunks replaces the reference's atomicCAS edge mutex with
+  a deterministic reduction (removing its sepset tie-break
+  nondeterminism).
+
+Every float32 one-hot selection dot here is pinned to
+``Precision.HIGHEST``: at default precision a GPU may run an f32 matmul in
+TF32 (10-bit mantissa), which would round the selected correlations and
+ESS values and move CI decisions. At HIGHEST a one-hot selection is exact.
 
 Small conditioning matrices are inverted with closed forms for l <= 3 and
 batched LU (`jnp.linalg.inv`) above; near-singular sets produce |rho| ~ 1,
@@ -131,16 +136,17 @@ def _pcorr_rho_local(C_x, c_row, c0y, deg_x, combos_left, sel, combos, l: int):
     correlations of x with its neighbours; c0y == c_row (kept separate for
     clarity); sel: l x (K, d) one-hot combo selectors.
 
-    All conditioning-set accesses are one-hot matmuls / masked reductions —
-    random-access gathers are ~40x slower than the MXU on TPU, so the only
-    gather in the whole level is the per-launch C_x slice.
+    All conditioning-set accesses are one-hot matmuls / masked reductions,
+    so the only gather in the whole level is the per-launch C_x slice.
     """
     K = sel[0].shape[0]
     d = C_x.shape[0]
     # rows_i[k, :] = C[S_ik, nbrs] ; C_x is symmetric so this also provides
     # M1Y_i = rows_i.T
     rows = [
-        jnp.dot(sel[i], C_x, preferred_element_type=jnp.float32) for i in range(l)
+        jnp.dot(sel[i], C_x, preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST)
+        for i in range(l)
     ]  # l x (K, d)
     Cx = [jnp.sum(sel[i] * c_row[None, :], axis=1) for i in range(l)]  # l x (K,)
     if l <= 3:
@@ -200,13 +206,6 @@ def level_scan_minrho(C, node_ixs, nbrs, deg, combos_seq, left_seq, l: int):
     return level_scan_minrho_pre(C_x, c_row, deg, combos_seq, left_seq, l)
 
 
-@partial(jax.jit, static_argnames=("l",))
-def level_scan_minrho_pre_jit(C_x, c_row, deg, combos_seq, left_seq, l: int):
-    """Jitted entry for pre-gathered local panels (the Pallas DMA gather
-    route feeds this; the plain `level_scan_minrho` inlines the body)."""
-    return level_scan_minrho_pre(C_x, c_row, deg, combos_seq, left_seq, l)
-
-
 def level_scan_minrho_pre(C_x, c_row, deg, combos_seq, left_seq, l: int):
     """`level_scan_minrho` on PRE-GATHERED local panels (the row-sharded
     engine builds them with a ring pass over the panel shards)."""
@@ -242,14 +241,8 @@ def level_scan_minrho_pre(C_x, c_row, deg, combos_seq, left_seq, l: int):
 
 
 def _pair_sweep_chunk(Cb, qb, Ct, qt, deg_x, t_cap, y_excl, t0, ct: int):
-    """One t-chunk of the pair sweep (the loop body of :func:`_pair_sweep`,
-    shared VERBATIM with the Pallas fused gather+sweep kernel so the two
-    routes run identical arithmetic). Ct/qt are the caller's chunk rows
-    (dynamic_slice on the XLA route; an exact one-hot selection inside the
-    Mosaic kernel, which cannot dynamic-slice values). All index tensors
-    are broadcasted_iota and reductions keep dims — 1-D iota reshaped onto
-    sublanes miscompiles under Mosaic (measured: every position came back
-    0), and this form is bit-identical under XLA."""
+    """One t-chunk of the pair sweep (the loop body of :func:`_pair_sweep`).
+    Ct/qt are the caller's dynamic_slice chunk rows."""
     d = Cb.shape[0]
     Rt = jax.lax.rsqrt(jnp.abs(1.0 - Ct * Ct))  # (t, s)
     # first conditioning step: everything given B u {t}
@@ -285,9 +278,7 @@ def _pair_sweep_chunk(Cb, qb, Ct, qt, deg_x, t_cap, y_excl, t0, ct: int):
     # take_along_axis: bit-identical (min of a masked iota IS the
     # first-occurrence argmin, and the keepdims min is an exact element
     # of the reduced axis so the equality compare is exact). The iota
-    # mins run in f32 — exact for indices << 2^24, and int32 min
-    # reductions over the sublane axis miscompile under Mosaic (measured
-    # all-zero positions) while f32 mins are correct.
+    # mins run in f32 — exact for indices << 2^24.
     rho_s = jnp.min(rho, axis=2, keepdims=True)  # (y, t, 1)
     s_f3 = s_i3.astype(jnp.float32)
     am_s = jnp.min(
@@ -295,7 +286,6 @@ def _pair_sweep_chunk(Cb, qb, Ct, qt, deg_x, t_cap, y_excl, t0, ct: int):
     )  # (y, t) smallest minimizing s
     rho_s = rho_s[:, :, 0]  # (y, t)
     rmin_k = jnp.min(rho_s, axis=1, keepdims=True)  # (y, 1)
-    # int iota cast to f32: Mosaic has no float iota
     t_f2 = jax.lax.broadcasted_iota(jnp.int32, (d, ct), 1).astype(jnp.float32)
     am_t = jnp.min(
         jnp.where(rho_s == rmin_k, t_f2, jnp.float32(ct)), axis=1
@@ -303,9 +293,7 @@ def _pair_sweep_chunk(Cb, qb, Ct, qt, deg_x, t_cap, y_excl, t0, ct: int):
     sl = jnp.min(
         jnp.where(t_f2 == am_t[:, None], am_s, jnp.float32(d)), axis=1
     )
-    # positions stay f32 (exact for indices << 2^24) all the way out of
-    # the Mosaic kernel: int32 sublane-resident vectors miscompile on the
-    # relayouting output write; callers cast once outside
+    # positions stay f32 (exact for indices << 2^24); callers cast once
     return rmin_k[:, 0], am_t + t0, sl
 
 
@@ -316,8 +304,8 @@ def _pair_sweep(Cb, qb, deg_x, t_hi, y_excl, ct: int):
     obtained from the level-k local panel by two steps of the classic
     recursion rho_{ab|B,c} = (rho_{ab|B} - rho_{ac|B} rho_{bc|B}) /
     sqrt((1-rho_{ac|B}^2)(1-rho_{bc|B}^2)) — algebraically the same Schur
-    complement as `cuPC-S.cu:664-699`, but every test costs O(1) fused VPU
-    ops instead of a per-combination matrix inverse.
+    complement as `cuPC-S.cu:664-699`, but every test costs O(1) fused
+    elementwise ops instead of a per-combination matrix inverse.
 
     Cb: (d, d) pcorr(a, b | B) among the node's neighbours; qb: (d,)
     pcorr(x, b | B); deg_x: live degree; pairs are restricted to
@@ -328,11 +316,8 @@ def _pair_sweep(Cb, qb, deg_x, t_hi, y_excl, ct: int):
     ascending — together this selects the LOWEST COLEX RANK among ties,
     matching the combinatorial path's chunk-scan tie-breaking.
 
-    Loop bounds are STATIC: an experiment that capped the chunk loop at
-    ceil(min(max deg, t_hi)/ct) and moved nodes onto the lane axis measured
-    2.4x SLOWER level-3 walls at the 11k block — XLA pipelines/unrolls the
-    static fori_loop but not data-dependent while loops (README "Level 1-3
-    routing").
+    Loop bounds are STATIC: XLA pipelines and unrolls a static fori_loop
+    but not a data-dependent while loop.
 
     Returns (rho_min (d,), t_pos (d,), s_pos (d,)) with positions into the
     neighbour list (int32).
@@ -381,7 +366,7 @@ def level1_local_sweep(C, node_ixs, nbrs, deg):
     `cal_Indepl1` (`cuPC-S.cu:486-582`) and as the dense v^3 sweep
     (`level1_dense_minrho`), but at sum(deg^2) cost instead of v^3: at the
     reference-default 11k block that is ~5 orders of magnitude fewer slots,
-    bounded by the local-panel gather instead of the VPU. Lanes layout
+    bounded by the local-panel gather instead of the sweep. Lanes layout
     (nodes trailing), one recursion step. Ties break toward the smallest
     conditioning position = smallest variable index (neighbour lists are
     ascending), identical to the dense sweep's argmin.
@@ -432,7 +417,7 @@ def level2_local_sweep(C, node_ixs, nbrs, deg, ct: int):
     |rho_{xy|s,t}| over all C(deg(x), 2) conditioning pairs from x's
     neighbour list, with the minimizing pair positions (colex tie-break —
     identical test set to `cal_Indepl2`, `cuPC-S.cu:584-716`). Dense
-    local-panel recursion: ~O(1) VPU ops per test, no per-combination
+    local-panel recursion: ~O(1) elementwise ops per test, no per-combination
     gathers or inverses.
 
     Returns (rho_min (nt, d), pos (nt, d, 2) int32 ascending positions).
@@ -656,22 +641,11 @@ def hetcor1_local_sweep(C, N, t_ix, node_ixs, nbrs, deg, th):
     return _hetcor1_local_core(Cb, qb, Nbv, Nbc, nrv, nrc, tn, t_x, deg, th)
 
 
-def hetcor1_local_sweep_pre(Cb, qb, Nb_raw, nr_raw, tn, t_x, deg, th):
-    """`hetcor1_local_sweep` on PRE-GATHERED local panels (row-sharded
-    entry point); NaN masking identical to `_hetcor_local_gather`."""
-    Nbv = jnp.nan_to_num(Nb_raw)
-    Nbc = jnp.where(jnp.isnan(Nb_raw), 0.0, 1.0)
-    nrv = jnp.nan_to_num(nr_raw)
-    nrc = jnp.where(jnp.isnan(nr_raw), 0.0, 1.0)
-    return _hetcor1_local_core(Cb, qb, Nbv, Nbc, nrv, nrc, tn, t_x, deg, th)
-
-
 @jax.jit
 def hetcor1_local_sweep_bits(C, N, t_ix, node_ixs, nbrs, deg, th):
     """`hetcor1_local_sweep` margins packed to removal hit-bits on device
-    (margin < 0, uint8 lanes): the caller only consumes the SIGN, and the
-    (nt, d) f32 margin fetch dominated the cuskss level-1 wall over the
-    remote relay (measured 4.6 s of 7.4 s) — bits cut the fetch 32x."""
+    (margin < 0, uint8 lanes): the caller only consumes the SIGN, and bits
+    cut the (nt, d) f32 margin fetch 32x."""
     m = hetcor1_local_sweep(C, N, t_ix, node_ixs, nbrs, deg, th)
     return jnp.packbits(m < 0, axis=1)
 
@@ -824,7 +798,7 @@ def _level1_dense_padded(C, Gm, tile: int):
     |rho_{xy|s}| over conditioning variables s with Gm[x, s] true (and
     s != x, s != y), and s_argmin the minimizing s. Uses the pre-scaled
     form |rho| = |c_xy R_xs R_ys - P_xs P_ys| with R = rsqrt(|1 - C^2|),
-    P = C R, so the inner sweep is 4 VPU ops per test.
+    P = C R, so the inner sweep is 4 elementwise ops per test.
     """
     vp = C.shape[0]
     s_ix = jnp.arange(vp)
@@ -871,16 +845,10 @@ def level1_dense_minrho(C, G):
     adj(x) \\ {y} — non-neighbours are masked to the RHO_BIG sentinel, so
     the dense sweep over all v candidates matches the reference's
     neighbour-list enumeration while avoiding every per-node host round
-    trip (the combinatorial path needs several launches per level, which
-    the remote-TPU dispatch latency makes dominant).
+    trip (the combinatorial path needs several launches per level).
 
     Returns (rho_min (v, v), s_argmin (v, v) int32).
     """
-    # NB: a hand-written Pallas VMEM kernel for this sweep measured 6.4x
-    # SLOWER than the XLA tiled loop at vp=2176 on v5e (39 vs 253 e9
-    # tests/s) — XLA fuses the (tile, vp, vp) sweep into the min reduction
-    # without materializing it; the kernel was removed (README, "Pallas
-    # findings")
     C = jnp.asarray(C, dtype=jnp.float32)
     v = C.shape[0]
     pad = (-v) % 128
@@ -889,8 +857,7 @@ def level1_dense_minrho(C, G):
         C = jnp.pad(C, ((0, pad), (0, pad)))
         Gm = jnp.pad(Gm, ((0, pad), (0, pad)))
     vp = v + pad
-    # x-tile = 128: one sublane-aligned slab; larger tiles gain nothing
-    # (probe_l1_routing.py: 128 and 64 within noise at vp=2176)
+    # x-tile = 128: not yet derived on the H100 (ROADMAP 3.2)
     tile = 128
     rho_min, s_min = _level1_dense_padded(C, Gm, tile)
     return rho_min[:v, :v], s_min[:v, :v]
@@ -981,8 +948,7 @@ def hetcor1_dense_margin(C_dev, N_dev, t_dev, Gb, th: float):
 @jax.jit
 def _level1_side_packed(rho_min, Gm, rho_threshold):
     """int8-packed removal side mask: the (v, v) bool costs a ~127 MB
-    fetch at the 11k block (measured: seconds to tens of seconds on the
-    relay); packed bits are 8x smaller."""
+    fetch at the 11k block; packed bits are 8x smaller."""
     return jnp.packbits((rho_min < rho_threshold) & Gm, axis=1)
 
 
@@ -1131,11 +1097,13 @@ def level_scan_hetcor_pre(
             )  # (K, d)
             # pairwise ESS sums over {x, y} u S with NaN masking
             rowsN = [
-                jnp.dot(sel[i], N_x_n, preferred_element_type=jnp.float32)
+                jnp.dot(sel[i], N_x_n, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
                 for i in range(l)
             ]  # l x (K, d)
             rowsNaN = [
-                jnp.dot(sel[i], N_nan_n, preferred_element_type=jnp.float32)
+                jnp.dot(sel[i], N_nan_n, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
                 for i in range(l)
             ]
             s_SS = jnp.zeros((K,), jnp.float32)

@@ -14,10 +14,10 @@ class here:
   which :func:`cigwas_tpu.parallel.block_scheduler.partition_blocks` uses as
   its default, so `run_all_blocks`/`cusk-all` need no partition flags under
   a launcher,
-* :func:`run_partition_process` is the per-process entry point used by the
-  measured-scaling bench and the multi-process tests: it forces the CPU
-  platform in the child (the remote TPU is a single-tenant device), runs the
-  partition, and prints one JSON line with its wall time.
+* :func:`run_partition_process` is the per-process entry point of one
+  partition worker: it runs the partition on whatever platform the caller
+  gave the process (`JAX_PLATFORMS`, `CUDA_VISIBLE_DEVICES`) and prints one
+  JSON line with its wall time.
 """
 
 from __future__ import annotations
@@ -58,9 +58,7 @@ def init_distributed(
     num_processes = num_processes or _env("NUM_PROCESSES", int)
     process_id = process_id if process_id is not None else _env("PROCESS_ID", int)
 
-    from jax._src import distributed as _dist
-
-    if _dist.global_state.client is not None:  # already initialized
+    if jax.distributed.is_initialized():
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -82,56 +80,32 @@ def process_partition() -> tuple[int, int]:
 
 
 def run_partition_process(argv=None) -> int:
-    """CLI for one partition worker (used by tests and the scaling bench).
+    """CLI for one partition worker (one process per card or per host).
 
     Usage: python -m cigwas_tpu.parallel.distributed <phen> <bfiles> <blocks>
       <alpha> <max_level> <max_level_two> <depth> <outdir>
       <num_partitions> <partition_index>
 
-    Forces the CPU platform (workers must not contend for the single
-    attached TPU), runs `run_all_blocks` for the given partition, and prints
-    one JSON line: {"partition": i, "wall_s": w, "results": {...}}.
+    Runs `run_all_blocks` for the given partition on the devices this
+    process sees, and prints one JSON line: {"partition": i, "wall_s": w,
+    "results": {...}}.
     """
     argv = argv if argv is not None else sys.argv[1:]
     (phen, bfiles, blocks, alpha, max_level, max_level_two, depth, outdir,
      nparts, pindex) = argv
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from cigwas_tpu.parallel.runner import run_all_blocks
 
-    def one_pass():
-        t0 = time.perf_counter()
-        res = run_all_blocks(
-            phen, bfiles, blocks, float(alpha), int(max_level),
-            int(max_level_two), int(depth), outdir,
-            num_partitions=int(nparts), partition_index=int(pindex),
-            verbose=False,
-        )
-        return res, time.perf_counter() - t0
-
-    if os.environ.get("CIGWAS_WORKER_STEADY"):
-        # steady-state wall: a long-running production worker amortizes
-        # its per-process compile/trace warmup over the whole partition
-        # stream, so the scaling measure uses passes with every kernel
-        # already compiled (outputs are byte-identical reruns). The env
-        # value is the number of steady passes; the reported wall is
-        # their MIN — single samples on a shared VM ride one noise draw
-        # (VERDICT r4 #6), and min-of-k inside one process pays process
-        # startup once instead of k times.
-        k = max(1, int(os.environ["CIGWAS_WORKER_STEADY"]))
-        one_pass()  # warmup (compile/trace)
-        passes = [one_pass() for _ in range(k)]
-        walls = [w for _, w in passes]
-        results, wall = min(passes, key=lambda rw: rw[1])
-    else:
-        results, wall = one_pass()
-        walls = [wall]
+    t0 = time.perf_counter()
+    results = run_all_blocks(
+        phen, bfiles, blocks, float(alpha), int(max_level),
+        int(max_level_two), int(depth), outdir,
+        num_partitions=int(nparts), partition_index=int(pindex),
+        verbose=False,
+    )
+    wall = time.perf_counter() - t0
     print(json.dumps({
         "partition": int(pindex),
         "wall_s": wall,
-        "walls_s": walls,
         "results": {k: v for k, v in results.items()},
     }))
     return 0

@@ -30,14 +30,16 @@ def partition_mesh(
     partition_index: int | None = None,
     axis: str = "marker",
 ):
-    """1-D mesh over THIS partition's slice of the local devices.
+    """1-D mesh over THIS partition's group of the local devices.
 
-    Partition p of the block list gets devices
-    [p*g, (p+1)*g) (g = devices_per_partition), so concurrent partition
-    workers on one host each shard their blocks over a disjoint device
-    group — block-DP across groups, panel-TP inside each
-    (SURVEY §2.4 row 1). partition_index defaults to this process's
-    `jax.process_index()` (0 single-process).
+    Partition p of the block list gets devices [p*g, (p+1)*g)
+    (g = devices_per_partition) of the devices this process sees, so
+    concurrent partition workers on one host each shard their blocks over a
+    disjoint device group — block-DP across groups, panel-TP inside each
+    (SURVEY §2.4 row 1). A process that sees exactly g devices was already
+    given its group by its launcher (e.g. one worker per card with
+    `CUDA_VISIBLE_DEVICES=p`) and uses them all. partition_index defaults to
+    this process's `jax.process_index()` (0 single-process).
     """
     import jax
     import numpy as np
@@ -45,7 +47,9 @@ def partition_mesh(
 
     if partition_index is None:
         partition_index = jax.process_index()
-    devs = jax.devices()
+    devs = jax.local_devices()
+    if len(devs) == devices_per_partition:
+        return Mesh(np.array(devs), (axis,))
     lo = devices_per_partition * partition_index
     hi = lo + devices_per_partition
     if hi > len(devs):

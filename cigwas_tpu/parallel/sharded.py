@@ -10,8 +10,8 @@ Sharding layout (axis name given by the caller, conventionally ``marker``):
   marker ROW slabs — each device computes (3·m/D, n) x (n, 3·m) counts on
   its slab — and the finished (v, v) panel is all-gathered to every device
   (`ShardedEngine`). Replication is the latency-optimal default: the level
-  kernels read arbitrary (x, y, S) entries, and one v5e chip holds an
-  11k-variable f32 panel in <0.5 GB of HBM (the reference's ~9.3 GB working
+  kernels read arbitrary (x, y, S) entries, and one card holds an
+  11k-variable f32 panel in <0.5 GB of device memory (the reference's ~9.3 GB working
   set, `cuPC-S.cu:85-95`, is dominated by the n²·ML sepset array, which
   lives on the host here). For blocks beyond one chip's HBM,
   `RowShardedEngine` keeps the panel split in (vp/D, vp) stripes and feeds
@@ -36,11 +36,6 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.7
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
 from cigwas_tpu.ops import pcorr as pcorr_ops
 from cigwas_tpu.ops.corr import _kendall_from_counts
 from cigwas_tpu.ops.decode import (
@@ -56,12 +51,8 @@ def mesh_axis_size(mesh: Mesh, axis: str) -> int:
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    try:
-        return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                         check_vma=False)
-    except TypeError:  # older shard_map API
-        return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                         check_rep=False)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 # ---------------------------------------------------------------------------
@@ -528,7 +519,7 @@ def make_panel_sharded(mesh: Mesh, axis: str):
 # level kernel consumes it through ONE primitive: a ring pass that rotates
 # the panel shards around the mesh while each device extracts the (nt, d, d)
 # local neighbour panels of the nodes it owns. Peak panel bytes per device
-# are 2 shards (own + in-flight) + the local panels: the TPU analogue of the
+# are 2 shards (own + in-flight) + the local panels: the analogue of the
 # reference's stripe sweep under a device-memory cap
 # (`corr_host.cu:208-420`).
 

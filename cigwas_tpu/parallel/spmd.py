@@ -1,8 +1,7 @@
 """SPMD multi-chip skeleton step over a (block, marker, sample) mesh.
 
 The reference has no distributed runtime at all (SURVEY.md §2.4); this module
-is the TPU-native replacement. One step runs, for a sharded batch of LD
-blocks:
+is the replacement. One step runs, for a sharded batch of LD blocks:
 
 1. one-hot genotype decode on the local (marker-shard, sample-shard) tile,
 2. contingency counts: local (3m_s, n_s) x all-gathered (3m, n_s)^T matmul,
@@ -14,8 +13,7 @@ blocks:
    single-variable conditioning sets), using all-gathered panel columns,
 
 and returns the global adjacency (all-gathered over ``marker``). Collectives:
-``all_gather`` over `marker` and `sample`, `psum` over `sample` — all riding
-ICI inside a slice.
+``all_gather`` over `marker` and `sample`, `psum` over `sample`.
 """
 
 from __future__ import annotations
@@ -23,13 +21,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.7 name
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from cigwas_tpu.ops.corr import _kendall_from_counts
 from cigwas_tpu.ops.decode import geno_onehot, geno_value_valid
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _onehot(codes: jnp.ndarray, dtype=jnp.int8) -> jnp.ndarray:
@@ -63,15 +59,15 @@ def build_multichip_cusk_step(mesh: Mesh, th0: float, th1: float):
             counts = jax.lax.psum(
                 jnp.dot(X_loc, X_all.T, preferred_element_type=jnp.int32),
                 "sample",
-            )  # (3ms, 3m) exact int32 counts from the int8 MXU path
+            )  # (3ms, 3m) exact int32 counts from the int8 matmul
             m = codes_all.shape[0]
             C_mm = _kendall_from_counts(counts.astype(jnp.float32), ms, m)
 
             # marker-phen pearson on standardized traits (sample psum);
             # missing codes decode to (2.0, valid=0) so vals * valid drops them
             vals, valid = geno_value_valid(codes_b)
-            s_mp = jax.lax.psum(jnp.dot(vals * valid, phen_b.T), "sample")
-            s_p = jax.lax.psum(jnp.dot(valid, phen_b.T), "sample")
+            s_mp = jax.lax.psum(jnp.dot(vals * valid, phen_b.T, precision=HIGHEST), "sample")
+            s_p = jax.lax.psum(jnp.dot(valid, phen_b.T, precision=HIGHEST), "sample")
             n_val = jax.lax.psum(jnp.sum(valid, axis=1, keepdims=True), "sample")
             mean = jax.lax.psum(jnp.sum(vals * valid, axis=1, keepdims=True), "sample") / n_val
             var = (
@@ -84,7 +80,7 @@ def build_multichip_cusk_step(mesh: Mesh, th0: float, th1: float):
 
             # phen-phen pearson
             pp_n = jax.lax.psum(jnp.full((), ns, jnp.float32), "sample")
-            C_pp = jax.lax.psum(jnp.dot(phen_b, phen_b.T), "sample") / pp_n
+            C_pp = jax.lax.psum(jnp.dot(phen_b, phen_b.T, precision=HIGHEST), "sample") / pp_n
 
             # local panel rows: markers of this shard x all variables
             C_rows = jnp.concatenate([C_mm, C_mp], axis=1)  # (ms, m + p)
@@ -132,20 +128,11 @@ def build_multichip_cusk_step(mesh: Mesh, th0: float, th1: float):
 
         return jax.vmap(per_block)(codes, phen)
 
-    try:
-        sharded = shard_map(
-            local_step,
-            mesh=mesh,
-            in_specs=(P("block", "marker", "sample"), P("block", None, "sample")),
-            out_specs=P("block", None, None),
-            check_vma=False,
-        )
-    except TypeError:  # older shard_map API
-        sharded = shard_map(
-            local_step,
-            mesh=mesh,
-            in_specs=(P("block", "marker", "sample"), P("block", None, "sample")),
-            out_specs=P("block", None, None),
-            check_rep=False,
-        )
+    sharded = jax.shard_map(
+        local_step,
+        mesh=mesh,
+        in_specs=(P("block", "marker", "sample"), P("block", None, "sample")),
+        out_specs=P("block", None, None),
+        check_vma=False,
+    )
     return jax.jit(sharded)

@@ -1,6 +1,6 @@
 """Lightweight timing / tracing instrumentation.
 
-TPU equivalent of the reference's cudaEvent "spent seconds" prints around
+Equivalent of the reference's cudaEvent "spent seconds" prints around
 every level kernel (`cuPC-S.cu:80-83,130-134`): a stage timer that logs
 wall-clock per named stage and can wrap the run in a `jax.profiler` trace
 for detailed analysis.

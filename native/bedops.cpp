@@ -1,13 +1,14 @@
 // Native host-side PLINK .bed operations.
 //
-// TPU-native equivalent of the reference's C++ data layer: the per-byte
+// Equivalent of the reference's C++ data layer: the per-byte
 // LUT decode and column statistics of `cusk/src/prep.cpp:15-77` and the
 // decode tables of `cusk/include/mps/bed_lut.h`, as a small shared library
 // driven from Python via ctypes. These are the host data-loader hot loops
-// that feed the TPU input pipeline; the on-chip decode lives in
+// that feed the device input pipeline; the on-device decode lives in
 // cigwas_tpu/ops/decode.py.
 //
-// Build: g++ -O3 -shared -fPIC -o libbedops.so bedops.cpp
+// Built on first use by cigwas_tpu/native.py (g++ -O3 -shared -fPIC) into
+// libbedops-<source hash>.so.
 
 #include <cmath>
 #include <cstdint>

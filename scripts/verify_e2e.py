@@ -17,7 +17,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():

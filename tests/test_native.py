@@ -54,3 +54,19 @@ def test_native_file_stats_golden(tmp_path):
     assert np.allclose(
         stds, [0.66332496, 0.83066239, 0.6, 0.77459667, 0.83066239], atol=1e-6
     )
+
+
+def test_library_name_tracks_source_content(tmp_path, monkeypatch):
+    """The cached library is keyed by the source's content, not by file
+    times a checkout scrambles: an edited source gets a new library path,
+    restoring it gives the old one back."""
+    from cigwas_tpu import native
+
+    src = tmp_path / "bedops.cpp"
+    src.write_text("int f() { return 1; }\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    first = native._so_path()
+    src.write_text("int f() { return 2; }\n")
+    assert native._so_path() != first
+    src.write_text("int f() { return 1; }\n")
+    assert native._so_path() == first

@@ -192,3 +192,62 @@ def test_cli_cusk_mesh_flags(sim_dataset, tmp_path):
         a = hashlib.md5(open(out_a / f, "rb").read()).hexdigest()
         b = hashlib.md5(open(out_b / f, "rb").read()).hexdigest()
         assert a == b, f
+
+
+def test_postprocessing_stages_do_not_import_pandas(sim_dataset, tmp_path):
+    """merge-block-outputs, sepselect and mvivw run without pandas, which
+    the machines that run the pipeline need not have."""
+    import subprocess
+    import sys
+
+    tmp, stem, n = sim_dataset
+    src = tmp / "out"
+    out = tmp_path / "out"
+    out.mkdir()
+    for f in os.listdir(src):
+        if f.count("_") == 2 and not f.startswith(("merged", "max_sep")):
+            (out / f).write_bytes((src / f).read_bytes())
+    merged = str(out / "merged_blocks")
+    code = f"""
+import sys
+from cigwas_tpu.cli import main
+main(["merge-block-outputs", {str(out)!r}, {stem + "_m64.blocks"!r}])
+main(["sepselect", {merged!r}, "0.001", "{n}"])
+main(["mvivw", {merged!r}, "{n}"])
+assert "pandas" not in sys.modules, "pandas was imported"
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=repo),
+    )
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert os.path.exists(merged + "_mvivw_results.tsv")
+    # the same results as the pipeline test's run
+    assert open(merged + "_mvivw_results.tsv").read() == open(
+        src / "merged_blocks_mvivw_results.tsv").read()
+
+
+def test_mvivw_table_bytes_match_pandas_writer(sim_dataset, tmp_path):
+    """`write_table` writes the bytes pandas' `to_csv` wrote for the same
+    rows, so `_mvivw_results.tsv` and `_iv_candidates.csv` keep their
+    format."""
+    pd = pytest.importorskip("pandas")
+    from cigwas_tpu.io.results import write_table
+    from cigwas_tpu.merge import IV_COLUMNS, get_iv_candidates
+    from cigwas_tpu.mr.mvivw import RESULT_COLUMNS, run_mvivw
+
+    tmp, stem, n = sim_dataset
+    merged = str(tmp / "out" / "merged_blocks")
+    ours = tmp_path / "ours.tsv"
+    rows = run_mvivw(merged, n, out_path=str(ours))
+    df = pd.DataFrame(rows, columns=RESULT_COLUMNS)
+    df["sk_adj"] = df["sk_adj"].map({True: "TRUE", False: "FALSE"})
+    df.to_csv(tmp_path / "pandas.tsv", sep="\t", index=False)
+    assert ours.read_bytes() == (tmp_path / "pandas.tsv").read_bytes()
+    ivs = get_iv_candidates(merged)
+    assert ivs
+    write_table(str(tmp_path / "ivs.csv"), IV_COLUMNS, ivs)
+    pd.DataFrame(ivs).to_csv(tmp_path / "ivs_pd.csv", index=False)
+    assert (tmp_path / "ivs.csv").read_bytes() == (
+        tmp_path / "ivs_pd.csv").read_bytes()

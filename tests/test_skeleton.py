@@ -468,3 +468,169 @@ def test_local_tile_plan_merges_small_buckets():
     plan2 = _local_tile_plan(deg2, np.arange(len(deg2)), 3)
     assert len(plan2) == 2
     assert plan2[0][0] == 48 and plan2[1][0] == 56
+
+
+def _bruteforce_min_pcorr(C, x, nbrs, deg, y_slot, l):
+    """Min |pcorr(x, y | S)| over every S of l live neighbour slots other
+    than y, float64 through the precision matrix; sets touching a NaN
+    entry are not tests. Returns (min, {value: [sets]})."""
+    import itertools
+
+    y = int(nbrs[y_slot])
+    best, by_val = np.inf, {}
+    live = [s for s in range(deg) if s != y_slot]
+    for S in itertools.combinations(live, l):
+        ixs = [x, y] + [int(nbrs[s]) for s in S]
+        sub = C[np.ix_(ixs, ixs)].astype(np.float64)
+        if np.isnan(sub).any():
+            continue
+        P = np.linalg.inv(sub)
+        r = abs(P[0, 1] / np.sqrt(P[0, 0] * P[1, 1]))
+        by_val.setdefault(r, []).append(S)
+        best = min(best, r)
+    return best, by_val
+
+
+@pytest.mark.parametrize("l", [1, 2, 3])
+def test_local_sweeps_scattered_neighbours_match_bruteforce(l):
+    """The level-1/2/3 local sweeps on neighbour lists scattered over the
+    whole panel, with NaN correlations and padded slots, against a numpy
+    brute-force partial-correlation oracle: the same minimum |rho| per
+    (node, neighbour) and a minimizing set that attains it."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.ops import pcorr as pcorr_ops
+
+    rng = np.random.default_rng(20 + l)
+    vp, nt, d = 256, 5, 16
+    X = rng.normal(size=(vp, 600))
+    for i in range(1, vp):
+        X[i] += 0.5 * X[rng.integers(0, i)]
+    C = np.corrcoef(X).astype(np.float32)
+    hole = np.triu(rng.random((vp, vp)) < 0.004, 1)
+    C[hole | hole.T] = np.nan
+    nodes = rng.choice(vp, nt, replace=False).astype(np.int32)
+    nbrs = np.zeros((nt, d), np.int32)
+    deg = rng.integers(l + 3, d + 1, nt).astype(np.int32)
+    for r, x in enumerate(nodes):
+        pool = np.setdiff1d(np.arange(vp), [x])
+        nbrs[r, : deg[r]] = np.sort(rng.choice(pool, deg[r], replace=False))
+    args = (jnp.asarray(C), jnp.asarray(nodes), jnp.asarray(nbrs),
+            jnp.asarray(deg))
+    if l == 1:
+        rho, pos = pcorr_ops.level1_local_sweep(*args)
+        pos = np.asarray(pos)[:, :, None]
+    else:
+        sweep = {2: pcorr_ops.level2_local_sweep,
+                 3: pcorr_ops.level3_local_sweep}[l]
+        rho, pos = sweep(*args, 8)
+        pos = np.asarray(pos)
+    rho = np.asarray(rho)
+    checked = 0
+    for r, x in enumerate(nodes):
+        for y_slot in range(deg[r]):
+            best, by_val = _bruteforce_min_pcorr(
+                C, int(x), nbrs[r], int(deg[r]), y_slot, l)
+            if not np.isfinite(best):
+                assert rho[r, y_slot] == pcorr_ops.RHO_BIG
+                continue
+            np.testing.assert_allclose(rho[r, y_slot], best, atol=2e-5)
+            chosen = tuple(int(s) for s in pos[r, y_slot])
+            assert any(chosen in sets for v, sets in by_val.items()
+                       if abs(v - best) < 2e-5), (r, y_slot, chosen)
+            checked += 1
+    assert checked > nt * l
+
+
+@pytest.mark.parametrize("want_pmax", [False, True])
+def test_skeleton_local_route_matches_scan_scattered(monkeypatch, want_pmax):
+    """The host-loop local-panel route of levels 2/3 (the lean hit-bits
+    fetch without pMax, the full rho fetch with it) against the
+    combinatorial chunk scan, on an AR(1) panel whose level >= 2 degrees
+    span several buckets: adjacency, sepsets and final level exact, pMax
+    to float tolerance (different f32 op orders)."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.skeleton import cupc
+
+    rng = np.random.default_rng(5)
+    v, n = 96, 900
+    L = rng.normal(size=(v, n))
+    for i in range(1, v):
+        L[i] = 0.92 * L[i - 1] + np.sqrt(1 - 0.92**2) * L[i]
+    C = np.corrcoef(L).astype(np.float32)
+    Cp = np.zeros((128, 128), np.float32)
+    Cp[:v, :v] = C
+    np.fill_diagonal(Cp, 1.0)
+    th = threshold_array(n, 1e-2)
+    monkeypatch.setattr(cupc, "DEV_RESIDENT_MAX", 0)  # the host loop
+    local = cupc.skeleton(jnp.asarray(Cp), th, 5, n_var=v,
+                          want_pmax=want_pmax)
+    monkeypatch.setattr(cupc, "LOCAL_LEVELS", ())
+    scan = cupc.skeleton(jnp.asarray(Cp), th, 5, n_var=v,
+                         want_pmax=want_pmax)
+    assert local.final_level >= 2
+    assert local.final_level == scan.final_level
+    np.testing.assert_array_equal(local.G, scan.G)
+    np.testing.assert_array_equal(local.sepset, scan.sepset)
+    if want_pmax:
+        np.testing.assert_allclose(local.pmax, scan.pmax, rtol=1e-3,
+                                   atol=1e-5)
+
+
+def test_level_local_wide_degree_positions_not_truncated():
+    """Degrees above 256 must not route through the uint8 hit-bits fetch:
+    neighbour-list slots would wrap mod 256 and give silently wrong
+    sepsets on the production want_pmax=False path. At a 270-degree node
+    both fetches must agree, with positions past slot 255 in use."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.skeleton import cupc
+
+    rng = np.random.default_rng(7)
+    v = 384
+    C = (0.3 * rng.normal(size=(v, v))).astype(np.float32)
+    C = ((C + C.T) / 2).astype(np.float32)
+    np.fill_diagonal(C, 1.0)
+    G = np.zeros((v, v), np.int32)
+    G[0, 1:271] = 1
+    G[1:271, 0] = 1
+    C_dev = jnp.asarray(C)
+    lean = cupc._run_level_local(C_dev, G, 2, 0.9, want_rho=False)
+    full = cupc._run_level_local(C_dev, G, 2, 0.9, want_rho=True)
+    ra, (xa, ya, rho_a, sa) = lean
+    rb, (xb, yb, _, sb) = full
+    assert rho_a is None
+    # the neighbour list is 1..270, so variable index == slot + 1
+    assert (sa > 256).any()
+    np.testing.assert_array_equal(ra, rb)
+    np.testing.assert_array_equal(xa, xb)
+    np.testing.assert_array_equal(ya, yb)
+    np.testing.assert_array_equal(sa, sb)
+
+
+def test_level_local_threshold_is_traced_not_baked():
+    """A second level run with a DIFFERENT threshold in the same process
+    must decide with its own threshold: the lean-fetch kernel takes the
+    threshold as a traced argument, so its jit cache entry is shared."""
+    import jax.numpy as jnp
+
+    from cigwas_tpu.skeleton import cupc
+
+    rng = np.random.default_rng(11)
+    v = 256
+    C = (0.4 * rng.normal(size=(v, v))).astype(np.float32)
+    C = ((C + C.T) / 2).astype(np.float32)
+    np.fill_diagonal(C, 1.0)
+    G = np.zeros((v, v), np.int32)
+    G[0, 1:65] = 1
+    G[1:65, 0] = 1
+    C_dev = jnp.asarray(C)
+    loose = cupc._run_level_local(C_dev, G, 2, 0.9, want_rho=False)
+    assert loose[1][0].size > 0
+    tight = cupc._run_level_local(C_dev, G, 2, 1e-6, want_rho=False)
+    tight_full = cupc._run_level_local(C_dev, G, 2, 1e-6, want_rho=True)
+    np.testing.assert_array_equal(tight[0], tight_full[0])
+    np.testing.assert_array_equal(tight[1][0], tight_full[1][0])
+    np.testing.assert_array_equal(tight[1][3], tight_full[1][3])
+    assert tight[1][0].size < loose[1][0].size
